@@ -2,13 +2,14 @@
 //
 // Reference status: the reference's dataset reader is native C++ (OpenCV
 // imread) — SURVEY.md §2a R1.  Here the only host work that can bottleneck
-// the TPU at 60+ fps is 16-bit PNG decode and timestamp association
+// the device at 60+ fps is 16-bit PNG decode and timestamp association
 // (SURVEY.md §7 Stage 7), so exactly that is native: a minimal libpng
 // decoder (no OpenCV dependency, releases the GIL via ctypes) and the
 // greedy nearest-timestamp matcher.  Exposed through a plain C ABI for
-// ctypes — no pybind11 (not available in this toolchain).
+// ctypes — no pybind11.  Optional: without it the loader decodes with
+// tpuslam/data/png.py (zlib + numpy).
 //
-// Build: csrc/build.sh  →  tpuslam/data/_libtum_native.so
+// Build (needs libpng): csrc/build.sh  →  tpuslam/data/_libtum_native.so
 
 #include <png.h>
 

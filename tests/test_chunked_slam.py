@@ -97,7 +97,7 @@ def test_chunked_matches_per_frame(two_lap_sequence):
 
 
 def test_chunked_async_backend_parity(two_lap_sequence):
-    """chunk streaming + async backend worker (the combination the TPU
+    """chunk streaming + async backend worker (the combination the
     benchmark reports as `slam_fps_chunked_async`): the worker gets one
     queued fused verify+optimize attempt per promotion — same opportunity
     count as the sync path — and finalize drains it, so keyframes and

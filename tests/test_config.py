@@ -1,6 +1,8 @@
 """Config system round trip (SURVEY.md §5 "Config / flag system"): configs
 are static jit arguments, so JSON loading must restore hashable tuples."""
 
+import pytest
+
 from tpuslam.config import ICPConfig, SLAMConfig
 
 
@@ -49,3 +51,31 @@ def test_validate_accepts_defaults_and_rejects_bad():
                    icp=ICPConfig(pyramid_levels=3)).validate()
     with pytest.raises(ValueError, match="cv_damping"):
         SLAMConfig(cv_damping=1.0).validate()
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_placement(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is where the cache lands and
+    the package sets nothing else; unset, the cache is <checkout>/.jax_cache
+    — a fixed path, so later processes hit it."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = root
+    expect = os.path.join(root, ".jax_cache")
+    if env_dir:
+        expect = str(tmp_path / env_dir)
+        env["JAX_COMPILATION_CACHE_DIR"] = expect
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, tpuslam; "
+         "print(jax.config.jax_compilation_cache_dir); "
+         "print(tpuslam.compile_cache_dir())"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=120, check=True)
+    assert out.stdout.split() == [expect, expect]

@@ -2,7 +2,7 @@
 recovery"): kill a SLAM run mid-sequence, restart from the last snapshot,
 and require the recovered trajectory to match an uninterrupted run.
 
-TPU slices are fixed-topology — there is no true elasticity; the honest
+A fixed device mesh has no true elasticity; the honest
 mechanism is checkpoint + full restart (documented in SURVEY.md §5), which
 is exactly what this exercises at the process level.
 """

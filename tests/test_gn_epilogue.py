@@ -1,18 +1,15 @@
-"""GN epilogue kernel (kernels/pallas_epilogue.py) vs its jnp oracle and
-the legacy solve_gn_step + se3.exp chain (SURVEY.md §4 kernel-oracle
-strategy; round-4 op-launch-overhead roofline)."""
+"""GN epilogue kernel (kernels/gn_triton.gn_epilogue, Triton route, run in
+interpret mode here) vs its jnp twin `epilogue_math` and the plain
+solve_gn_step + se3.exp chain; plus the per-platform choice of GN step."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpuslam.geom import se3
 from tpuslam.kernels.gn_reduce import gn_reduce, solve_gn_step
-from tpuslam.kernels.pallas_epilogue import (
-    gn_epilogue_pallas,
-    gn_epilogue_reference,
-)
-from tpuslam.kernels.pallas_gn import gn_reduce_partials_pallas
+from tpuslam.kernels.gn_triton import epilogue_math, gn_epilogue, gn_partials
 
 
 def make_partials(rng, n=5000, valid_frac=0.8):
@@ -22,7 +19,7 @@ def make_partials(rng, n=5000, valid_frac=0.8):
     nn /= np.linalg.norm(nn, axis=1, keepdims=True)
     nrm = jnp.asarray(nn.astype(np.float32))
     w = jnp.asarray((rng.uniform(size=n) < valid_frac).astype(np.float32))
-    partials = gn_reduce_partials_pallas(x, q, nrm, w, 0.05, interpret=True)
+    partials = gn_partials(x, q, nrm, w, 0.05, interpret=True)
     return partials, (x, q, nrm, w)
 
 
@@ -32,10 +29,15 @@ ARGS = (1e-6, 1e-4, 0.3, 0.3)   # damping, damping_abs, max_trans, max_rot
 def test_epilogue_kernel_matches_reference(rng):
     partials, _ = make_partials(rng)
     T = se3.exp(jnp.asarray([0.02, -0.01, 0.03, 0.01, -0.02, 0.01]))
-    ro = gn_epilogue_reference(partials, T, *ARGS)
-    rk = gn_epilogue_pallas(partials, T, *ARGS, interpret=True)
-    for a, b, tol in zip(rk, ro, (1e-6, 1e-3, 1e-9, 1e-2, 0.0, 1e-2)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol)
+    T_ref, H_ref, stats = epilogue_math(partials.sum(0), T, *ARGS)
+    T_new, H, dsq, wsq, ninl = gn_epilogue(partials, T, *ARGS,
+                                           interpret=True)
+    np.testing.assert_allclose(np.asarray(T_new), np.asarray(T_ref),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(H), np.asarray(H_ref)[:6, :6],
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose([float(dsq), float(wsq), float(ninl)],
+                               np.asarray(stats)[:3], rtol=1e-5, atol=1e-12)
 
 
 def test_epilogue_matches_legacy_solve_chain(rng):
@@ -44,8 +46,8 @@ def test_epilogue_matches_legacy_solve_chain(rng):
     Gauss vs LU, generator-matrix vs series exp — same math)."""
     partials, (x, q, nrm, w) = make_partials(rng)
     T = se3.exp(jnp.asarray([0.02, -0.01, 0.03, 0.01, -0.02, 0.01]))
-    T_new, H, dsq, wsq, ninl, wsum = gn_epilogue_pallas(
-        partials, T, *ARGS, interpret=True)
+    T_new, H, dsq, wsq, ninl = gn_epilogue(partials, T, *ARGS,
+                                           interpret=True)
     stats = gn_reduce(x, q, nrm, w, w > 0, 0.05)
     delta = solve_gn_step(stats.H, stats.b, *ARGS)
     np.testing.assert_allclose(np.asarray(T_new),
@@ -61,14 +63,11 @@ def test_epilogue_matches_legacy_solve_chain(rng):
 def test_epilogue_trust_region_clamps(rng):
     """A huge b must produce a clamped step, exactly like solve_gn_step."""
     partials, (x, q, nrm, w) = make_partials(rng)
-    # scale the b rows (21..26 of each 32-row group) so the raw step
-    # exceeds the trust-region caps
-    row = jnp.arange(partials.shape[0]) % 32
-    boost = jnp.where((row >= 21) & (row < 27), 500.0, 1.0)[:, None]
-    partials_b = partials * boost
+    boost = jnp.where((jnp.arange(32) >= 21) & (jnp.arange(32) < 27),
+                      500.0, 1.0)
     T = jnp.eye(4)
-    T_new, _, dsq, *_ = gn_epilogue_pallas(partials_b, T, *ARGS,
-                                           interpret=True)
+    T_new, _, dsq, *_ = gn_epilogue(partials * boost, T, *ARGS,
+                                    interpret=True)
     stats = gn_reduce(x, q, nrm, w, w > 0, 0.05)
     delta = solve_gn_step(stats.H, stats.b * 500.0, *ARGS)
     np.testing.assert_allclose(np.asarray(T_new),
@@ -82,10 +81,10 @@ def test_epilogue_trust_region_clamps(rng):
 def test_epilogue_all_invalid_is_identity(rng):
     """Zero partials (no correspondences) must leave the pose unchanged
     and report zero inliers — the rank-collapse guard path."""
-    partials = jnp.zeros((32, 128), jnp.float32)
+    partials = jnp.zeros((3, 32), jnp.float32)
     T = se3.exp(jnp.asarray([0.1, 0.2, -0.1, 0.05, 0.0, 0.1]))
-    T_new, H, dsq, wsq, ninl, _ = gn_epilogue_pallas(
-        partials, T, *ARGS, interpret=True)
+    T_new, H, dsq, wsq, ninl = gn_epilogue(partials, T, *ARGS,
+                                           interpret=True)
     np.testing.assert_allclose(np.asarray(T_new), np.asarray(T), atol=1e-6)
     np.testing.assert_allclose(np.asarray(H), 0.0)
     assert float(ninl) == 0.0 and float(wsq) == 0.0
@@ -93,29 +92,29 @@ def test_epilogue_all_invalid_is_identity(rng):
 
 
 def test_epilogue_nonfinite_solve_keeps_pose(rng):
-    """A non-finite system (inf in a b row → inf/NaN through the unpivoted
+    """A non-finite system (inf in a b entry → inf/NaN through the unpivoted
     Gauss solve) must yield a ZERO step — pose unchanged, no NaN anywhere —
     matching solve_gn_step's where(ok, delta, 0) guard."""
     partials, _ = make_partials(rng)
     bad = np.array(partials)
-    bad[22, :] = np.inf                   # a b-component row of group 0
-    partials_bad = jnp.asarray(bad)
+    bad[0, 22] = np.inf                   # a b component of row 0
     T = se3.exp(jnp.asarray([0.05, -0.02, 0.01, 0.02, 0.01, -0.03]))
-    T_new, _, dsq, *_ = gn_epilogue_pallas(partials_bad, T, *ARGS,
-                                           interpret=True)
+    T_new, _, dsq, *_ = gn_epilogue(jnp.asarray(bad), T, *ARGS,
+                                    interpret=True)
     assert np.all(np.isfinite(np.asarray(T_new)))
     np.testing.assert_allclose(np.asarray(T_new), np.asarray(T), atol=1e-6)
     assert float(dsq) == 0.0
 
 
 def test_icp_loop_epilogue_path_matches_jnp(rng, monkeypatch):
-    """End-to-end: _icp_loop with the forced-Pallas (reduce + epilogue)
-    path in interpret mode converges to the jnp path's pose."""
+    """End-to-end: _icp_loop with the kernel GN step (reduce + epilogue,
+    interpret mode) converges to the jnp path's pose."""
     import dataclasses
+    from functools import partial
 
+    import tpuslam.icp as icp
     from tpuslam.config import ICPConfig
     from tpuslam.geom.cloud import PointCloud
-    from tpuslam.icp import align_clouds
 
     n = 4000
     pts = rng.normal(size=(n, 3)).astype(np.float32)
@@ -130,12 +129,46 @@ def test_icp_loop_epilogue_path_matches_jnp(rng, monkeypatch):
                      normals=se3.rotate_vectors(se3.inv(T_true), dst.normals),
                      mask=dst.mask)
     cfg = dataclasses.replace(ICPConfig(), max_iters=12, normal_dot_min=0.0)
-    r_jnp = align_clouds(src, dst, jnp.eye(4), cfg, use_grid=False)
-    monkeypatch.setenv("TPUSLAM_FORCE_PALLAS", "1")
-    r_pal = align_clouds(src, dst, jnp.eye(4), cfg, use_grid=False)
+    r_jnp = icp.align_clouds(src, dst, jnp.eye(4), cfg, use_grid=False)
+    monkeypatch.setattr(icp, "_gn_step_xla",
+                        partial(icp._gn_step_kernels, interpret=True))
+    r_pal = icp.align_clouds(src, dst, jnp.eye(4), cfg, use_grid=False)
     np.testing.assert_allclose(np.asarray(r_pal.T), np.asarray(r_jnp.T),
                                atol=5e-5)
     np.testing.assert_allclose(np.asarray(r_pal.T), np.asarray(T_true),
                                atol=5e-4)
     assert float(r_pal.num_inliers) == pytest.approx(
         float(r_jnp.num_inliers), rel=1e-3)
+
+
+@pytest.mark.parametrize("platform", ["cpu", "cuda"])
+def test_gn_step_lowers_kernels_only_for_cuda(rng, platform):
+    """icp.gn_step picks its implementation from the lowering platform:
+    the Triton kernels for CUDA, the plain chain (LU solve) elsewhere."""
+    from tpuslam.config import ICPConfig
+    from tpuslam.icp import gn_step
+
+    _, (x, q, nrm, w) = make_partials(rng, n=300)
+    fn = jax.jit(lambda *a: gn_step(*a, cfg=ICPConfig()))
+    txt = fn.trace(x, q, nrm, w, w > 0, jnp.eye(4)).lower(
+        lowering_platforms=(platform,)).as_text()
+    assert ("gn_reduce_partials" in txt) == (platform == "cuda")
+    assert ("gn_epilogue" in txt) == (platform == "cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_compiled_on_gpu_match_plain_chain(rng, gpu):
+    """On the card: the compiled kernels against the plain chain."""
+    from tpuslam.config import ICPConfig
+    from tpuslam.icp import _gn_step_kernels, _gn_step_xla
+
+    _, (x, q, nrm, w) = make_partials(rng, n=153600)
+    T = se3.exp(jnp.asarray([0.02, -0.01, 0.03, 0.01, -0.02, 0.01]))
+    args = [jax.device_put(a, gpu) for a in (x, q, nrm, w, w > 0, T)]
+    cfg = ICPConfig()
+    kern = jax.jit(lambda *a: _gn_step_kernels(*a, cfg=cfg))(*args)
+    plain = jax.jit(lambda *a: _gn_step_xla(*a, cfg=cfg))(*args)
+    np.testing.assert_allclose(np.asarray(kern[0]), np.asarray(plain[0]),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(kern[1]), np.asarray(plain[1]),
+                               rtol=1e-4, atol=1e-2)

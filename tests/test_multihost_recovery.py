@@ -10,7 +10,7 @@ heartbeat kills the job the same way), both processes restart with a fresh
 coordinator, rejoin via `jax.distributed.initialize`, reload the snapshot,
 and finish.  The recovered poses must match an uninterrupted 2-process run.
 
-TPU slices are fixed-topology — no true elasticity; checkpoint + full
+A fixed device mesh has no true elasticity; checkpoint + full
 restart + rejoin IS the honest recovery story (SURVEY.md §5), exercised
 here at the process level with real cross-process collectives.
 """

@@ -62,17 +62,28 @@ def test_scan_odometry_matches_host():
 
 
 def test_decimate2_matches_strided_slice():
-    """The MXU one-hot column-select decimation (TPU branch of
-    frontend.decimate2) must reproduce d[::2, ::2] exactly — 0/1 × f32
-    products are exact even under the bf16-pass f32 matmul decomposition."""
-    import jax.numpy as jnp
-    import numpy as np
+    """Each pyramid level backprojects the stride-2^l decimated depth with
+    the scaled intrinsics — NaN pixels included: they stay invalid at every
+    level, and their points are zeroed rather than carried."""
+    from tpuslam.frontend import preprocess
+    from tpuslam.geom.backproject import backproject
 
-    rng = np.random.default_rng(3)
-    d = jnp.asarray(rng.uniform(0.0, 5.0, size=(120, 160)).astype(np.float32))
-    sel = jnp.eye(d.shape[1], dtype=d.dtype)[:, ::2]
-    out = d[::2] @ sel                      # the TPU expression
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(d[::2, ::2]))
+    _, depths = render_sequence(num_frames=1)
+    d = depths[0].copy()
+    d[10:14, 20:30] = np.nan
+    d[50, 80] = np.nan
+    pyr = preprocess(jnp.asarray(d), K, CFG)
+    for li, lvl in enumerate(pyr):
+        s = 2 ** li
+        d_l = d[::s, ::s]
+        pts, mask = backproject(jnp.asarray(d_l), K.scaled(1.0 / s),
+                                depth_min=CFG.icp.depth_min,
+                                depth_max=CFG.icp.depth_max)
+        np.testing.assert_array_equal(np.asarray(lvl.points),
+                                      np.asarray(pts))
+        assert not np.asarray(lvl.mask)[np.isnan(d_l)].any()
+        assert np.isfinite(np.asarray(lvl.points)).all()
+        assert np.asarray(lvl.mask).sum() > 0.5 * d_l.size
 
 
 def test_raw_uint16_upload_bit_equals_f32(tmp_path=None):

@@ -4,9 +4,8 @@ The pipeline stages are annotated with `jax.named_scope`, which XLA carries
 into every op's `op_name` metadata — the string XProf groups the trace
 timeline by.  The compiled-HLO check below is backend-independent proof the
 annotation wiring is live (the CPU *runtime* trace only records host-level
-events, so scope visibility is asserted at the metadata layer; the
-checked-in TPU trace in docs/traces/ shows the same names on real
-hardware).  A second test checks `profiling.trace` actually captures an
+events, so scope visibility is asserted at the metadata layer; a GPU
+trace carries the same names as each kernel's `tf_op`).  A second test checks `profiling.trace` actually captures an
 XProf-loadable artifact.
 """
 

@@ -48,39 +48,3 @@ def test_ring_map_handles_empty_shards():
     out = align_to_map_ring(src_world, tiny_map, se3.identity(), cfg, mesh)
     assert np.all(np.isfinite(np.asarray(out.T)))
 
-
-def test_ring_map_pallas_matches_xla_ring():
-    """The fused Pallas remote-DMA ring kernel (interpret mode on the fake
-    mesh — real make_async_remote_copy semantics) must reproduce the
-    ppermute ring's pose: same exact-NN correspondences, same reduction."""
-    src_world, dst = make_clouds(n=1024)
-    tau = jnp.array([0.03, -0.02, 0.04, 0.015, -0.02, 0.02])
-    T_true = se3.exp(tau)
-    src = src_world.transform(se3.inv(T_true))
-    cfg = ICPConfig(max_iters=25, max_corr_dist=0.3, huber_delta=0.1)
-
-    mesh = make_mesh()
-    ref = align_to_map_ring(src, dst, se3.identity(), cfg, mesh,
-                            backend="xla")
-    out = align_to_map_ring(src, dst, se3.identity(), cfg, mesh,
-                            backend="pallas")
-
-    # Same correspondences; distances differ only by the |q|^2-2xq+|x|^2
-    # expansion's rounding, so the converged poses agree tightly.
-    np.testing.assert_allclose(np.asarray(out.T), np.asarray(ref.T),
-                               atol=5e-4)
-    t_err, r_err = pose_error(out.T, T_true)
-    assert t_err < 8e-3 and r_err < 8e-3
-    assert float(out.num_inliers) > 0.9 * float(ref.num_inliers)
-
-
-def test_ring_map_pallas_handles_empty_shards():
-    src_world, dst = make_clouds(n=512)
-    mask = np.zeros(dst.points.shape[0], dtype=bool)
-    mask[:5] = True
-    tiny_map = dst._replace(mask=jnp.asarray(mask & np.asarray(dst.mask)))
-    cfg = ICPConfig(max_iters=3, max_corr_dist=0.3)
-    mesh = make_mesh()
-    out = align_to_map_ring(src_world, tiny_map, se3.identity(), cfg, mesh,
-                            backend="pallas")
-    assert np.all(np.isfinite(np.asarray(out.T)))

@@ -1,6 +1,6 @@
 """Backend verification plumbing (backend/verify.py) and its edge cases:
 gate semantics, the projective/grid fallback on mixed retained tables, and
-the NaN guard in the TPU decimation expression."""
+NaN depth containment in the pyramid that verification tables come from."""
 
 import dataclasses
 
@@ -88,17 +88,26 @@ def test_mixed_verify_tables_fall_back_to_grid(monkeypatch):
 
 
 def test_mxu_decimation_contains_nan():
-    """The one-hot select decimation must not let 0·NaN poison a row (the
-    TPU expression, evaluated on CPU for exactness)."""
-    d = np.full((8, 16), 2.0, np.float32)
-    d[3, 5] = np.nan
-    dj = jnp.asarray(d)
-    dj = jnp.where(jnp.isfinite(dj), dj, 0.0)
-    sel = jnp.eye(16, dtype=jnp.float32)[:, ::2]
-    out = np.asarray(dj[::2] @ sel)
-    assert np.isfinite(out).all()
-    ref = np.where(np.isfinite(d), d, 0.0)[::2, ::2]
-    np.testing.assert_array_equal(out, ref)
+    """A NaN depth pixel must not poison its neighbours at any pyramid
+    level: normals stay finite everywhere, and outside the NaN pixel's
+    3×3 neighbourhood the valid set equals the clean frame's."""
+    from tests.test_slam import CFG, H, K, W
+    from tpuslam.data.synthetic import render_depth
+    from tpuslam.frontend import preprocess
+
+    d = render_depth(np.eye(4), K, H, W, seed=0)
+    bad = d.copy()
+    bad[40, 60] = np.nan              # even indices: survives decimation
+    clean = preprocess(jnp.asarray(d), K, CFG)
+    dirty = preprocess(jnp.asarray(bad), K, CFG)
+    for li, (c, f) in enumerate(zip(clean, dirty)):
+        assert np.isfinite(np.asarray(f.normals)).all()
+        r, k = 40 >> li, 60 >> li
+        keep = np.ones(np.asarray(f.mask).shape, bool)
+        keep[r - 1:r + 2, k - 1:k + 2] = False
+        assert not np.asarray(f.mask)[r, k]
+        np.testing.assert_array_equal(np.asarray(f.mask)[keep],
+                                      np.asarray(c.mask)[keep])
 
 
 def test_traced_gates_match_host_gates(rng):

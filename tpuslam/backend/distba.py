@@ -8,7 +8,7 @@ Design: **edge-sharded** distributed GN.  The trajectory's edges (odometry +
 loop closures) are partitioned over the mesh; every device assembles the
 normal-system contribution of its edge shard with the *same* code as the
 single-device backend (`edge_normal_system`), the (6N, 6N) partial systems
-are `psum`-ed over ICI, and the reduced system is solved replicated — so
+are `psum`-ed over the interconnect, and the reduced system is solved replicated — so
 poses stay bit-identical on every device with one all-reduce per GN round.
 
 This is the Schur-style reduction pattern specialized to a landmark-free
@@ -48,7 +48,7 @@ def _spmd_optimize(poses, node_mask, edge_i, edge_j, edge_T, edge_w,
         H, b, cost = edge_normal_system(
             poses, edge_i, edge_j, edge_T, edge_w, info, huber_delta
         )
-        H = lax.psum(H, axis)          # ← the ICI all-reduce (SURVEY §2d)
+        H = lax.psum(H, axis)          # ← the all-reduce (SURVEY §2d)
         b = lax.psum(b, axis)
         cost = lax.psum(cost, axis)
         new_poses = solve_and_update(poses, node_mask, H, b, cfg)

@@ -22,14 +22,14 @@ complement needs no per-landmark matrix inverse at all:
 
 with U ∈ R^{M×6N} the pose-landmark coupling (u_j rows), c_j = Σ w r.
 H_pp is block-diagonal (each observation touches ONE pose); all pose-pose
-fill-in comes from the reduction — assembled as one (6N, M)·(M, 6N) matmul
-that the MXU eats.  Back-substitution: ds = (c + U δ) / a, applied to the
+fill-in comes from the reduction — assembled as one (6N, M)·(M, 6N)
+matmul.  Back-substitution: ds = (c + U δ) / a, applied to the
 map points each Gauss-Newton round before re-linearizing.
 
 Distribution (`optimize_map_ba_spmd`): landmarks and their observations are
 partitioned over the mesh (map voxel blocks — the CP row of SURVEY §2c);
 each device eliminates ITS landmark blocks locally, the reduced (6N, 6N)
-pose systems are `psum`-ed over ICI together with the edge-sharded
+pose systems are `psum`-ed together with the edge-sharded
 pose-graph contribution, the pose solve is replicated (bit-identical
 poses everywhere), and landmark back-substitution stays local.  One
 all-reduce per GN round, no landmark data ever crosses devices.
@@ -203,7 +203,7 @@ def _spmd_round_fn(graph_poses, node_mask, edge_i, edge_j, edge_T, edge_w,
             obs_pose=obs_pose, obs_map=obs_map_local, obs_p=obs_p,
             obs_w=obs_w)
         H_pp, b_p, U, a, c, cost_map = map_ba_partials(poses, p, huber_delta)
-        # local landmark elimination, THEN the one ICI all-reduce
+        # local landmark elimination, THEN the one all-reduce
         H_red, b_red = schur_reduce(H_pp, b_p, U, a, c)
         H_e, b_e, cost_e = edge_normal_system(
             poses, edge_i, edge_j, edge_T, edge_w, info, edge_huber_delta)

@@ -3,14 +3,13 @@
 Reference status: keyframe nodes + odometry/loop-closure edges, GN/LM over
 relative-pose residuals (SURVEY.md §2a R11; provenance [B:5], [B:11]).
 
-TPU design: padded graph (static capacity per compile, masked; the host
+Design: padded graph (static capacity per compile, masked; the host
 builder doubles capacity when full — see GraphHost),
 per-edge residual r = log(T_meas⁻¹ · T_i⁻¹ · T_j) with Jacobians from
 `jax.jacfwd` of the local-twist parametrization, **vmapped over all edges at
 once** — no per-edge host loop.  The normal system is assembled as a dense
-(6N, 6N) matrix via batched scatter-add and solved with Cholesky on the MXU:
-at prototype scale (N ≤ a few hundred) dense beats sparse bookkeeping on
-TPU.  Gauge freedom is fixed by a strong prior on node 0.  The whole
+(6N, 6N) matrix via batched scatter-add and solved with Cholesky: at
+prototype scale (N ≤ a few hundred) dense beats sparse bookkeeping.  Gauge freedom is fixed by a strong prior on node 0.  The whole
 optimization (`gn_iters` Gauss-Newton rounds) is one jitted `fori_loop`.
 
 The distributed variant (keyframe-sharded, psum-reduced) lives in
@@ -258,7 +257,7 @@ def _solve_update_cg(poses, node_mask, blocks, b, cfg: PoseGraphConfig,
     fine for N ≤ a few hundred, hopeless at production trajectory scale.
     Here H is only ever applied: Hx costs O(E) batched 6×6 matmuls + two
     scatter-adds, and the preconditioner is the inverted (N, 6, 6) block
-    diagonal (batched on the MXU).  Same gauge prior + damping as the
+    diagonal (batched).  Same gauge prior + damping as the
     dense path, so both solve the identical regularized system.
     """
     Hii, Hjj, Hij, edge_i, edge_j = blocks

@@ -51,6 +51,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sharded-map", action="store_true",
                    help="shard the voxel map over all devices: all-to-all "
                         "owner-routed fusion + ring frame-to-map tracking")
+    p.add_argument("--mesh-devices", type=int, default=None,
+                   help="number of devices the --sharded-map mesh spans "
+                        "(default: all)")
     p.add_argument("--map-ba", action="store_true",
                    help="final Schur-complement map bundle adjustment over "
                         "all keyframes (backend/map_ba.py)")
@@ -137,6 +140,12 @@ def _run_pipeline(args, use_slam: bool) -> int:
     from tpuslam.utils.checkpoint import load_checkpoint, save_checkpoint
     from tpuslam.utils.metrics import JsonlLogger
 
+    if getattr(args, "viz_dir", None):
+        import importlib.util
+
+        if importlib.util.find_spec("matplotlib") is None:
+            raise ValueError("--viz-dir needs matplotlib, which is not "
+                             "installed")
     _init_distributed(args)
     cfg = _load_config(args.config)
     if getattr(args, "lc_descriptor", False):
@@ -166,6 +175,7 @@ def _run_pipeline(args, use_slam: bool) -> int:
                    map_track_mode=getattr(args, "map_track_mode", "projective"),
                    async_backend=getattr(args, "async_backend", False),
                    sharded_map=getattr(args, "sharded_map", False),
+                   mesh_devices=getattr(args, "mesh_devices", None),
                    chunk_mode=getattr(args, "chunk_mode", "boundary"),
                    chunk_sub=getattr(args, "chunk_sub", 8))
         if use_slam
@@ -185,9 +195,9 @@ def _run_pipeline(args, use_slam: bool) -> int:
     from tpuslam.frontend import prefetch_to_device
 
     # Steady-state marker: everything before the SECOND processed batch is
-    # dominated by one-time costs (jit compiles / compile-cache loads take
-    # minutes per process on the remote-TPU platform) — `fps` alone would
-    # misread a short run as 100× slower than the pipeline actually is.
+    # dominated by one-time costs (jit compiles or compile-cache loads) —
+    # `fps` alone would misread a short run as far slower than the
+    # pipeline actually is.
     t_steady = {"t": None, "frames": 0}
 
     def after_frames(frames_done, per_frame_ms):

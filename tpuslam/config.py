@@ -73,11 +73,8 @@ class ICPConfig:
     tol_delta: float = 1e-4
     # Optional per-pyramid-level override, index 0 = FINEST.  Coarse levels
     # only need to land inside the next-finer level's convergence basin, so
-    # a looser coarse tol is safe — but measure before using: at 640×480
-    # defaults (1e-4, 1e-3, 2e-3) was throughput-neutral (coarse levels
-    # already early-exit) and (1e-4, 2e-3, 5e-3) was 6% SLOWER end to end
-    # (sloppier warm starts push iterations onto the expensive finest
-    # level).  Synthetic-loop ATE unchanged in both cases.
+    # a looser coarse tol is safe — but sloppier warm starts can push
+    # iterations onto the expensive finest level; measure before using.
     tol_delta_per_level: tuple | None = None
     huber_delta: float = 0.05            # m — robust weight knee
     max_corr_dist: float = 0.25          # m — reject correspondences beyond
@@ -93,70 +90,44 @@ class ICPConfig:
     iters_per_level: tuple = (12, 8, 8)  # index 0 = FINEST level
     depth_min: float = 0.1               # m — valid depth range
     depth_max: float = 5.0
-    # GN steps solved per correspondence gather.  The projective row gather
-    # dominates the iteration (measured 1.1 of 1.3 ms at 640x480); between
-    # gathers the association barely changes, so re-solving the same
-    # linearization with re-transformed points (classic inner/outer ICP)
-    # buys extra convergence nearly free.  `iters_per_level` still counts GN
-    # steps, so the step budget is unchanged — only the gather count drops.
-    # 2 measured 0.58 ms/GN-step vs 1.31 at 1 (640×480 finest level), with
-    # the converged pose within 6e-5 of re-associating every step.  3 is
-    # cheaper per step (0.44) but loses at the frame level: the early-exit
-    # can only fire between gathers, so near convergence the extra forced
-    # inner solves are pure waste (measured 206 vs 219 fps).
+    # GN steps solved per correspondence gather.  Between gathers the
+    # association barely changes, so re-solving the same linearization with
+    # re-transformed points (classic inner/outer ICP) buys extra convergence
+    # for the price of a GN step, not a gather.  `iters_per_level` still
+    # counts GN steps, so the step budget is unchanged — only the gather
+    # count drops.  2 keeps the converged pose within 6e-5 of re-associating
+    # every step; more forced inner solves are wasted near convergence,
+    # because the early exit can only fire between gathers.
     inner_steps: int = 2
     # Optional per-level override of `inner_steps`, index 0 = FINEST (same
-    # convention as iters_per_level).  Coarse levels are latency-bound (the
-    # small gathers cost a near-constant ~85 µs regardless of point count)
-    # and never early-exit mid-gather-group, so packing MORE GN solves per
-    # gather there is nearly free while the finest level stays at 2 (its
-    # early-exit granularity matters — see inner_steps note above).
+    # convention as iters_per_level).
     inner_steps_per_level: tuple | None = None
-    # Storage dtype of the packed projective-association table.  The TPU
-    # gather engine moves 16-byte rows ~2.3x faster than 32-byte rows, and
-    # float16's 10-bit mantissa keeps the converged pose within 6e-5 of the
-    # float32 table (bfloat16's 8 bits cost 8e-4 — not worth it).  All math
-    # stays float32; only the gathered target rows are stored quantized.
+    # Storage dtype of the packed projective-association table: 16-byte
+    # rows halve the gathered bytes of 32-byte float32 rows, and float16's
+    # 10-bit mantissa keeps the converged pose within 6e-5 of the float32
+    # table (bfloat16's 8 bits cost 8e-4).  All math stays float32; only
+    # the gathered target rows are stored quantized.  Not yet measured
+    # against float32 rows on the GPU.
     packed_dtype: str = "float16"
     # SOURCE-point decimation at the FINEST pyramid level: keep 1/k of the
     # source pixels (1 = all, 2 = every other ROW — contiguous row slices
-    # keep the gather's spatial locality; a checkerboard was measured 35%
-    # slower — 4 = use the next-coarser pyramid frame as the source, i.e. a
-    # stride-2 grid without the relayout-bound (H, W, 3) strided slice).
-    # 4 is +11% fps over 2 at 640×480 (438 vs 394) with synthetic-orbit ATE
-    # still at the noise floor (0.046 vs 0.031 mm), but degrades sharply at
-    # LOW resolutions (7.4 mm vs 0.14 mm on the 120×160 loop — too few
+    # keep the gather's spatial locality — 4 = use the next-coarser pyramid
+    # frame as the source, i.e. a stride-2 grid without a strided slice of
+    # the (H, W, 3) points).  4 keeps the synthetic-orbit ATE at the noise
+    # floor at 640×480 (0.046 vs 0.031 mm) but degrades sharply at LOW
+    # resolutions (7.4 mm vs 0.14 mm on the 120×160 loop — too few
     # residuals) — opt in for VGA+, never for small frames.
-    # The association gather is ~85% of an iteration and is O(source
-    # points), so k=2 nearly halves the finest-level cost; the TARGET table
-    # stays full resolution, so association precision is unchanged — only
-    # the (massively overdetermined) residual set shrinks.  The 6-DoF GN
-    # system remains conditioned with >100k correspondences at 640×480/k=2.
-    # Default 2: measured 246 vs 216 fps at 640×480 full tracking with the
-    # synthetic-loop ATE unchanged at the noise floor (1.3e-4 vs 1.0e-4 m).
+    # The association gather is O(source points), so k=2 nearly halves the
+    # finest-level gather; the TARGET table stays full resolution, so
+    # association precision is unchanged — only the (massively
+    # overdetermined) residual set shrinks.  The 6-DoF GN system remains
+    # conditioned with >100k correspondences at 640×480/k=2, and the
+    # synthetic-loop ATE stays at the noise floor (1.3e-4 vs 1.0e-4 m).
     finest_subsample: int = 2
     # Optional per-level source decimation override, index 0 = FINEST (same
     # convention as iters_per_level); each entry ∈ {1, 2, 4} as in
-    # finest_subsample.  The middle pyramid level runs several gather-groups
-    # per frame at FULL source density by default — decimating it trades
-    # residual count (hugely overdetermined) for gather rows exactly like
-    # the finest level does.  None → (finest_subsample, 1, 1, ...).
+    # finest_subsample.  None → (finest_subsample, 1, 1, ...).
     level_subsample: tuple | None = None
-    # Fully-fused projective GN step (kernels/gn_fused.py): transform,
-    # projection/normal gates, Huber and the JJᵀ reduction in ONE Pallas
-    # VMEM pass per GN solve.  The kernel itself is 14× faster than the
-    # unfused reduce (8.7 µs vs 0.12 ms at 153k points, measured round 4)
-    # — but OFF by default: its per-component plane prep costs ~0.5 ms of
-    # lane-deinterleave relayouts per iteration AND evicts the f16 packed
-    # table from VMEM, where XLA's allocator pins it on the legacy path
-    # (a VMEM-resident table gathers at 0.29 ms vs 1.70 ms from HBM —
-    # BASELINE.md round-4 roofline).  Net: 1.28 vs 0.34 ms/GN-step.  Keep
-    # False unless the target generation grows VMEM or Mosaic gains f16
-    # refs + cheap lane deinterleave; the kernel + oracle stay tested as
-    # the design is environment-bound, not wrong.  Projective-packed
-    # targets only — grid-hash and brute-force always use the legacy
-    # chain.
-    fused_gn: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +168,7 @@ class KeyframeConfig:
     # The table is a byproduct of tracking (pack_pyramid at promotion) —
     # retaining level 1 costs h·w/4 · 16 B (~1.2 MB at VGA) and makes a
     # verification ~400× lighter on gather traffic than the grid-hash
-    # probe (see BASELINE.md roofline: the gather is issue-rate-bound).
+    # probe (one row per source point instead of ~430).
     verify_level: int = 1
 
 
@@ -266,7 +237,6 @@ class SLAMConfig:
     # then amplifies its own error exponentially (diagnosed on the synthetic
     # loop: γ=1 diverges to metres, γ≤0.5 tracks exactly).
     cv_damping: float = 0.5
-    use_pallas: bool = True              # Pallas kernels vs pure-jnp oracle
     # Minimum ABSOLUTE matched-point count for a frame-to-map refinement to
     # be accepted (on top of the 0.3 inlier-fraction gate).  Scale it with
     # frame resolution / map density: 300 suits VGA frames with the default

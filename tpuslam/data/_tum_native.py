@@ -1,7 +1,7 @@
 """ctypes wrapper around the native TUM decode library (csrc/tum_decode.cc).
 
 Importing this module raises if the shared library hasn't been built
-(csrc/build.sh) — tpuslam/data/tum.py treats that as "fall back to OpenCV".
+(csrc/build.sh) — tpuslam/data/tum.py then decodes with data/png.py.
 ctypes releases the GIL during the C call, so the prefetch thread decodes
 truly in parallel with tracking.
 """

@@ -231,8 +231,7 @@ def write_tum_sequence(
     """
     import os
 
-    import cv2
-
+    from tpuslam.data.png import write_png
     from tpuslam.data.tum import matrix_to_quaternion
 
     os.makedirs(os.path.join(root, "depth"), exist_ok=True)
@@ -251,7 +250,7 @@ def write_tum_sequence(
                              noise=noise, seed=i)
         png = np.clip(np.round(depth * depth_scale), 0, 65535).astype(np.uint16)
         rel = f"depth/{ts:.6f}.png"
-        cv2.imwrite(os.path.join(root, rel), png)
+        write_png(os.path.join(root, rel), png)
         depth_lines.append(f"{ts:.6f} {rel}")
         if rgb:
             # TUM rgb timestamps differ slightly from depth — emulate that
@@ -261,7 +260,7 @@ def write_tum_sequence(
             img = (np.stack([shade, shade ** 2, 1.0 - shade], axis=-1)
                    * 255.0).astype(np.uint8)
             rel_rgb = f"rgb/{ts_rgb:.6f}.png"
-            cv2.imwrite(os.path.join(root, rel_rgb), img[..., ::-1])  # BGR
+            write_png(os.path.join(root, rel_rgb), img)
             rgb_lines.append(f"{ts_rgb:.6f} {rel_rgb}")
         q = matrix_to_quaternion(poses[i, :3, :3])
         t = poses[i, :3, 3]

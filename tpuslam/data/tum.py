@@ -5,10 +5,11 @@ Reference status: C++/OpenCV reader of TUM sequences — `depth.txt` /
 5000, Freiburg intrinsics (SURVEY.md §2a R1; provenance [B:8-11] + [PK]).
 
 Host-side by design: PNG decode and timestamp association never touch the
-TPU; the loader yields fixed-shape float32 depth arrays ready for device
-upload.  Decode prefers the native C++ extension (csrc/tum_decode.cc) when
-built, falling back to OpenCV then PIL.  A background prefetch thread keeps
-the device fed (SURVEY.md §7 Stage 7: decode must not bottleneck 60 fps).
+device; the loader yields fixed-shape float32 depth arrays ready for
+upload.  Decode prefers the optional native C++ extension
+(csrc/tum_decode.cc, libpng) when built, else the zlib + numpy codec in
+data/png.py.  A background prefetch pool keeps the device fed (SURVEY.md §7
+Stage 7: decode must not bottleneck 60 fps).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence
 import numpy as np
 
 from tpuslam.config import Intrinsics
+from tpuslam.data.png import read_png
 
 try:  # native decoder (csrc/tum_decode.cc), optional
     from tpuslam.data import _tum_native  # type: ignore
@@ -30,18 +32,10 @@ except Exception:  # pragma: no cover
 def _decode_depth_png_raw(path: str) -> np.ndarray:
     """16-bit PNG -> raw uint16 depth counts (no scaling)."""
     if _tum_native is not None:
-        raw = _tum_native.decode_png16(path)
-    else:
-        try:
-            import cv2
-
-            raw = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-            if raw is None:
-                raise IOError(f"failed to read {path}")
-        except ImportError:  # pragma: no cover
-            from PIL import Image
-
-            raw = np.asarray(Image.open(path))
+        return _tum_native.decode_png16(path)
+    raw = read_png(path)
+    if raw.dtype != np.uint16 or raw.ndim != 2:
+        raise ValueError(f"{path}: depth PNG must be 16-bit greyscale")
     return raw
 
 
@@ -140,17 +134,10 @@ def read_intrinsics_file(path: str) -> Intrinsics:
 
 def _decode_rgb_png(path: str) -> np.ndarray:
     """8-bit color PNG -> (H, W, 3) uint8 RGB."""
-    try:
-        import cv2
-
-        raw = cv2.imread(path, cv2.IMREAD_COLOR)
-        if raw is None:
-            raise IOError(f"failed to read {path}")
-        return raw[..., ::-1].copy()  # BGR -> RGB
-    except ImportError:  # pragma: no cover
-        from PIL import Image
-
-        return np.asarray(Image.open(path).convert("RGB"))
+    raw = read_png(path)
+    if raw.dtype != np.uint8 or raw.ndim != 3:
+        raise ValueError(f"{path}: colour PNG must be 8-bit RGB")
+    return raw
 
 
 class TumFrame(NamedTuple):
@@ -187,9 +174,8 @@ class TumSequence:
     `depth_cache=True` (default) enables the decode-once raw-depth sidecar:
     the first full iteration of a sequence writes the decoded float32 depth
     to `<root>/depth_cache.npy` (np.lib.format — memmap-able) and subsequent
-    runs stream from it, bypassing PNG decode entirely (the measured host
-    bottleneck: ~360 fps decode vs ~670 fps device tracking on a 2-core
-    box).  The sidecar is invalidated by `depth.txt` mtime/size and by a
+    runs stream from it, bypassing PNG decode entirely (PNG decode is the
+    host-side bottleneck of a streaming run).  The sidecar is invalidated by `depth.txt` mtime/size and by a
     depth-scale mismatch; an unwritable dataset directory silently disables
     caching.
     """
@@ -401,10 +387,9 @@ class TumSequence:
                raw: bool = False) -> Iterator[TumFrame]:
         """Iterate frames, decoding ahead on a thread pool (in order).
 
-        PNG decode is the host-side bottleneck (~5–6 ms/frame at 640×480 —
-        slower than the tracker); both the native libpng path and the
-        OpenCV/PIL fallbacks release the GIL during decode, so a small pool
-        scales nearly linearly.  `prefetch` bounds the in-flight window
+        PNG decode is the host-side bottleneck; both the native libpng path
+        and the zlib + numpy codec spend most of their time in code that
+        releases the GIL, so a small pool scales.  `prefetch` bounds the in-flight window
         (memory), `decode_threads` the parallelism (defaults to
         min(4, cpu_count), 1 ⇒ the old single-thread prefetch behavior).
         """

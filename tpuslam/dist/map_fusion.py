@@ -19,12 +19,12 @@ Design — "spatial experts" + all-to-all re-shard:
     owner-major layout** (SURVEY.md §2c Ulysses row): every device holds a
     slice of the incoming points (frame-major = whatever device produced or
     received them), computes each point's owner, buckets points by owner,
-    and ONE `lax.all_to_all` over ICI routes every bucket to its owner.
+    and ONE `lax.all_to_all` over the interconnect routes every bucket to its owner.
     Owners then fuse arrivals into their map shard with the same sort +
-    segment-sum voxel reduction used on a single chip (geom/voxel.py) — no
+    segment-sum voxel reduction used on a single device (geom/voxel.py) — no
     scatter, static shapes throughout.
   * Because every point of a given voxel routes to the same owner, the
-    sharded fusion is *exactly* the single-chip fusion per voxel (same
+    sharded fusion is *exactly* the single-device fusion per voxel (same
     centroid arithmetic, same counts), just computed on D devices: verified
     bit-comparable (up to float summation order) in tests/test_map_fusion.py.
 

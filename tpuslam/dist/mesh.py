@@ -1,10 +1,11 @@
 """Device mesh / collectives layer (SURVEY.md §2b N16, §2d).
 
 Reference status: none — the reference is a single CPU process (SURVEY.md
-§2d).  This module is the TPU-native equivalent of an NCCL/MPI backend:
-`jax.distributed` + `jax.sharding.Mesh` + `shard_map`, with XLA collectives
-(`psum`, `all_gather`, `ppermute`) compiled over ICI within a slice and DCN
-across slices (provenance [B:5]).
+§2d).  This module replaces an MPI backend with `jax.distributed` +
+`jax.sharding.Mesh` + `shard_map`: XLA collectives (`psum`, `all_gather`,
+`ppermute`, `all_to_all`), which XLA hands to NCCL on a GPU mesh
+(provenance [B:5]).  The mesh is a flat 1-D axis: the cards of a host are
+joined all to all, so no torus shape applies.
 
 Axis convention: one flat `"shard"` axis is enough for this workload — it
 carries *points* during the ICP reduction (the TP analogue of SURVEY.md

@@ -1,10 +1,11 @@
 """Ring-sharded frame-to-map ICP (SURVEY.md §2c "Ring attention" / CP rows).
 
 Reference status: none — single-process CPU (SURVEY.md §2d).  The north-star
-scaling dimension is *map size*: when the voxel map exceeds one chip's HBM,
+scaling dimension is *map size*: when the voxel map exceeds one device's
+memory,
 partition its points over the mesh and ring-pass shards between neighbors
-so every chip correlates its frame points against every map shard without
-ever all-gathering the map ([B:5]; pallas_guide §18 pattern).
+so every device correlates its frame points against every map shard without
+ever all-gathering the map ([B:5]).
 
 Design: frame points AND map points are both sharded.  Each ICP iteration
 runs D ring steps: correspond the local frame shard against the currently
@@ -15,16 +16,7 @@ seen the whole map; the GN reduction over frame shards completes with one
 `psum`.  Results are bit-comparable to the unsharded exact-NN path (min and
 sum are order-insensitive up to float rounding).
 
-Two interchangeable ring backends:
-
-  * `backend="xla"` — `lax.ppermute` between compute steps (XLA serializes
-    the permute against the correspondence compute).
-  * `backend="pallas"` — ONE hand-scheduled Pallas kernel per ICP iteration
-    runs all D hops with double-buffered `make_async_remote_copy` so each
-    hop's ICI transfer overlaps the NN compute on the held shard, with a
-    credit-token handshake for flow control (kernels/pallas_ring.py;
-    pallas_guide §18).  Validated in interpret mode on the fake CPU mesh
-    (remote DMAs simulated); compiled Mosaic on real multi-chip TPU.
+On a GPU mesh XLA hands each `ppermute` hop to NCCL.
 """
 
 from __future__ import annotations
@@ -84,57 +76,21 @@ def _ring_best_correspond(x, x_mask, map_pts, map_nrm, map_mask,
     return best_q, best_n, valid.astype(x.dtype)
 
 
-def _ring_best_correspond_pallas(x, x_mask, shard_cols, max_dist: float,
-                                 axis: str, n_dev: int, interpret: bool):
-    """All-hops NN via the fused Pallas remote-DMA ring kernel."""
-    from tpuslam.kernels.pallas_ring import pack_query_columns, ring_nn
-
-    m = shard_cols.shape[1]
-    bm = next(b for b in (512, 256, 128, m) if m % b == 0)
-    row, score = ring_nn(
-        pack_query_columns(x), shard_cols,
-        n_dev=n_dev, axis_name=axis, block_m=bm, interpret=interpret,
-    )
-    q, n = row[:, :3], row[:, 3:6]
-    # kernel score is |q|²−2x·q; add |x|² for the true squared distance
-    d2 = jnp.maximum(score[:, 0] + jnp.sum(x * x, axis=-1), 0.0)
-    has_normal = jnp.sum(n * n, axis=-1) > 0.5
-    valid = (
-        x_mask & (row[:, 6] > 0.5) & jnp.isfinite(score[:, 0])
-        & (d2 < max_dist * max_dist) & has_normal
-    )
-    return q, n, valid.astype(x.dtype)
-
-
 def _ring_icp(frame: PointCloud, map_shard: PointCloud, T0,
-              cfg: ICPConfig, axis: str, n_dev: int,
-              backend: str = "xla", interpret: bool = False) -> ICPResult:
+              cfg: ICPConfig, axis: str, n_dev: int) -> ICPResult:
     """Full ICP loop on one (frame shard, rotating map shard) pair."""
 
     # Same inner/outer split as tpuslam.icp._icp_loop — here the payoff is
     # even bigger: one "correspondence" costs a FULL D-step ring exchange of
     # the map shards, which now amortizes over `inner_steps` GN solves.
-    inner = max(1, int(getattr(cfg, "inner_steps", 1)))
-
-    if backend == "pallas":
-        from tpuslam.kernels.pallas_ring import pack_cloud_columns
-
-        # packed once per alignment, outside the while_loop
-        shard_cols = pack_cloud_columns(
-            map_shard.points, map_shard.normals, map_shard.mask)
+    inner = max(1, int(cfg.inner_steps))
 
     def body(state: _CarryState) -> _CarryState:
         x = se3.transform_points(state.T, frame.points)
-        if backend == "pallas":
-            q, n, w = _ring_best_correspond_pallas(
-                x, frame.mask, shard_cols, cfg.max_corr_dist, axis, n_dev,
-                interpret,
-            )
-        else:
-            q, n, w = _ring_best_correspond(
-                x, frame.mask, map_shard.points, map_shard.normals,
-                map_shard.mask, cfg.max_corr_dist, axis, n_dev,
-            )
+        q, n, w = _ring_best_correspond(
+            x, frame.mask, map_shard.points, map_shard.normals,
+            map_shard.mask, cfg.max_corr_dist, axis, n_dev,
+        )
         T_new = state.T
         for k in range(inner):
             if k > 0:
@@ -181,9 +137,8 @@ def _ring_icp(frame: PointCloud, map_shard: PointCloud, T0,
 
 
 @lru_cache(maxsize=32)
-def make_ring_align_fn(mesh: Mesh, cfg: ICPConfig, axis: str = SHARD_AXIS,
-                       backend: str = "xla"):
-    """Build (once per mesh/cfg/backend) the jitted ring-ICP callable.
+def make_ring_align_fn(mesh: Mesh, cfg: ICPConfig, axis: str = SHARD_AXIS):
+    """Build (once per mesh/cfg) the jitted ring-ICP callable.
 
     Rebuilding the shard_map closure per call would make every call a
     fresh jit cache entry — a silent recompile per tracked frame in the
@@ -192,25 +147,15 @@ def make_ring_align_fn(mesh: Mesh, cfg: ICPConfig, axis: str = SHARD_AXIS,
     (layout: tpuslam.icp.FlatICP) so latency-sensitive hosts can read every
     gate in one transfer.
     """
-    if backend not in ("xla", "pallas"):
-        raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
     n_dev = mesh.shape[axis]
-    # Pallas: per-shard map length must tile the lane dim (128) and frame
-    # shard the sublane dim (8); padding rows carry mask=False so both
-    # backends reduce identically.
-    map_mult = n_dev * 128 if backend == "pallas" else n_dev
-    frame_mult = n_dev * 8 if backend == "pallas" else n_dev
-    interpret = jax.default_backend() != "tpu"
     specs = PointCloud(points=P(axis, None), normals=P(axis, None),
                        mask=P(axis))
     fn = shard_map(
-        partial(_ring_icp, cfg=cfg, axis=axis, n_dev=n_dev,
-                backend=backend, interpret=interpret),
+        partial(_ring_icp, cfg=cfg, axis=axis, n_dev=n_dev),
         mesh=mesh,
         in_specs=(specs, specs, P()),
         out_specs=ICPResult(T=P(), iters=P(), rms=P(), inlier_fraction=P(),
                             converged=P(), H=P(), num_inliers=P()),
-        check_vma=(backend != "pallas"),
     )
 
     @partial(jax.jit, out_shardings=NamedSharding(mesh, P()))
@@ -220,31 +165,28 @@ def make_ring_align_fn(mesh: Mesh, cfg: ICPConfig, axis: str = SHARD_AXIS,
         res = fn(f, m, T)
         return res, flat_icp_scalars(res)
 
-    def padc(c: PointCloud, mult: int) -> PointCloud:
+    def padc(c: PointCloud) -> PointCloud:
+        # padding rows carry mask=False, so they never match or reduce
         return PointCloud(
-            points=pad_to_multiple(c.points, mult),
-            normals=pad_to_multiple(c.normals, mult),
-            mask=pad_to_multiple(c.mask, mult, fill=False),
+            points=pad_to_multiple(c.points, n_dev),
+            normals=pad_to_multiple(c.normals, n_dev),
+            mask=pad_to_multiple(c.mask, n_dev, fill=False),
         )
 
     def call(frame: PointCloud, map_cloud: PointCloud, T0):
-        return run(padc(frame, frame_mult), padc(map_cloud, map_mult), T0)
+        return run(padc(frame), padc(map_cloud), T0)
 
     return call
 
 
 def align_to_map_ring(frame: PointCloud, map_cloud: PointCloud,
                       T0: jnp.ndarray, cfg: ICPConfig, mesh: Mesh,
-                      axis: str = SHARD_AXIS,
-                      backend: str = "xla") -> ICPResult:
+                      axis: str = SHARD_AXIS) -> ICPResult:
     """Frame-to-map ICP with BOTH clouds sharded over the mesh.
 
-    Frame points stay put; map shards ring-rotate each iteration — map HBM
-    footprint per chip is M/D, yet correspondences are exact over the whole
-    map within `max_corr_dist`.
-
-    backend: "xla" (ppermute ring) or "pallas" (fused remote-DMA ring kernel
-    with compute/transfer overlap — kernels/pallas_ring.py)."""
-    res, _flat = make_ring_align_fn(mesh, cfg, axis, backend)(
+    Frame points stay put; map shards ring-rotate each iteration — map memory
+    footprint per device is M/D, yet correspondences are exact over the whole
+    map within `max_corr_dist`."""
+    res, _flat = make_ring_align_fn(mesh, cfg, axis)(
         frame, map_cloud, T0)
     return res

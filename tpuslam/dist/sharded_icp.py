@@ -7,7 +7,7 @@ target frame is replicated (it's small — one depth image per level).  The
 entire coarse-to-fine ICP, including its `lax.while_loop`, runs inside one
 `shard_map`: every device executes identical iterations on its point shard;
 the only cross-device traffic is an 8-float-wide `psum` of the partial
-(H, b, stats) per iteration — a latency-bound all-reduce that rides ICI.
+(H, b, stats) per iteration — a latency-bound all-reduce over the interconnect.
 The solved 6-DoF update is therefore bit-identical on every device, and the
 pose never needs broadcasting.
 """

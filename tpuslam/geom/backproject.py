@@ -3,7 +3,7 @@
 Reference status: per-pixel ``p = depth(u,v) · K⁻¹ · (u,v,1)`` loop in C++
 (SURVEY.md §2a R2; mount empty — provenance [B:5]).
 
-TPU design: fully vectorized over the (H, W) image with `broadcasted_iota`
+Design: fully vectorized over the (H, W) image with `broadcasted_iota`
 pixel grids — one fused elementwise op, no gather, organized output
 ``(H, W, 3)`` + validity mask so downstream normal estimation and projective
 association can use image-neighborhood structure.

@@ -3,7 +3,7 @@
 Reference status: C++ array-of-points struct with rigid-transform apply
 (SURVEY.md §2a R3; mount empty — provenance implied by [B:5]).
 
-TPU design: a pytree NamedTuple with **fixed-capacity padding discipline** —
+Design: a pytree NamedTuple with **fixed-capacity padding discipline** —
 `points` is always a static-shape (N, 3) array and `mask` marks which rows are
 real.  Every consumer (voxelize, ICP reduction, map fusion) reduces with the
 mask; no dynamic shapes ever reach XLA.  Clouds can be "organized" (N = H*W,

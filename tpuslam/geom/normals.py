@@ -4,7 +4,7 @@ Reference status: point-to-plane ICP implies per-point normals; typical
 prototype uses cross products of organized-image neighbors (SURVEY.md §2a R5;
 mount empty — provenance [B:5]).
 
-TPU design: central differences along image rows/cols via `jnp.roll` (pure
+Design: central differences along image rows/cols via `jnp.roll` (pure
 shifts — compile to cheap vector moves, no gathers), cross product, normalize,
 orient toward the camera.  One fused elementwise pipeline over (H, W).
 """

@@ -3,7 +3,7 @@
 Reference status: C++ hash of points into a voxel grid keeping a centroid per
 voxel (SURVEY.md §2a R4; mount empty — provenance [B:5]).
 
-TPU design: XLA scatter is slow, so we avoid per-voxel hash insertion
+Design: scatter with colliding keys is slow, so we avoid per-voxel hash insertion
 entirely (SURVEY.md §7 "Hard parts").  Instead:
 
   1. quantize each point to integer voxel coords in a fixed world AABB,

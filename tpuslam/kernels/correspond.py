@@ -4,7 +4,7 @@ Reference status: per-ICP-iteration nearest-neighbor queries against a CPU
 k-d tree; the designated hot spot ("Replace the CPU k-d tree", BASELINE.json
 north-star; SURVEY.md §2a R6).
 
-TPU design — three tree-free, fully batched strategies:
+Design — three tree-free, fully batched strategies:
 
   * `projective_correspond` — the production path for organized targets
     (frame-to-frame / frame-to-keyframe): transform source points into the
@@ -70,16 +70,13 @@ def pack_organized_target(dst_points: jnp.ndarray, dst_normals: jnp.ndarray,
     """Pack an organized target into one (H·W, 8) row-major table.
 
     Row = [qx qy qz nx ny nz mask·has_normal pad].  The per-iteration
-    association then needs ONE row gather instead of three separate gathers
-    — on TPU the gather unit moves whole 32-byte rows, and this packing
-    measured 4.5× faster per ICP iteration at 640×480 than component-wise
-    gathers.  Pack once per pyramid level, outside the iteration loop.
+    association then needs ONE row gather of contiguous bytes instead of
+    three separate gathers.  Pack once per pyramid level, outside the
+    iteration loop.
 
-    `dtype=float16` halves the row to 16 bytes, which the TPU gather engine
-    moves another ~2.3× faster; f16's 10-bit mantissa keeps the converged
-    pose within 6e-5 of the f32 table (all arithmetic stays f32 — only the
-    stored rows are quantized).  Narrower rows were measured SLOWER (the
-    gather is issue-rate-bound below 16 bytes), so 8 columns it stays.
+    `dtype=float16` halves the row to 16 bytes; f16's 10-bit mantissa keeps
+    the converged pose within 6e-5 of the f32 table (all arithmetic stays
+    f32 — only the stored rows are quantized).
     """
     h, w = dst_mask.shape
     has_normal = jnp.sum(dst_normals * dst_normals, axis=-1) > 0.5
@@ -184,7 +181,7 @@ def _pack_keys(points: jnp.ndarray, mask: jnp.ndarray, cell: float,
 
 
 class GridIndex(NamedTuple):
-    """Sorted-by-cell-key target cloud — the TPU 'hash table'."""
+    """Sorted-by-cell-key target cloud — a static-shape 'hash table'."""
 
     keys: jnp.ndarray     # (M,) sorted packed cell keys
     points: jnp.ndarray   # (M, 3) sorted

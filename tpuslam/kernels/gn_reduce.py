@@ -2,7 +2,7 @@
 
 Reference status: per-point residual + Huber weight + 6x6 JJᵀ accumulation
 loop in C++ (SURVEY.md §2a R7; BASELINE.json north-star: "fuse the
-weighted-least-squares reduction into a single Pallas pass").
+weighted-least-squares reduction into a single pass").
 
 Math: residual rᵢ = nᵢ·(xᵢ − qᵢ) with xᵢ the transformed source point;
 Jacobian of rᵢ w.r.t. a *left* twist δ = (ρ, φ) at δ=0 is
@@ -11,10 +11,10 @@ wᵢ = 1 for |r| ≤ δ_h else δ_h/|r|, times the {0,1} correspondence validity
 Output: H = Σ wᵢ Jᵢ Jᵢᵀ (6×6), b = Σ wᵢ rᵢ Jᵢ (6,), plus inlier count and
 weighted squared-residual sum for convergence/quality stats.
 
-`gn_reduce` is the jnp implementation: XLA fuses the elementwise chain into
-the (N,6)ᵀ(N,6) matmul, which the MXU eats.  `tpuslam/kernels/pallas/`
-provides the single-VMEM-pass Pallas kernel; this function doubles as its
-test oracle (SURVEY.md §4).
+`gn_reduce` is the jnp implementation (the (N,6)ᵀ(N,6) product of the
+weighted Jacobian).  `kernels/gn_triton.py` is the GPU kernel for the same
+reduce; this function and `solve_gn_step` are its test oracles (SURVEY.md
+§4) and the path on every other platform.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def gn_reduce(
     src_mask: jnp.ndarray,
     huber_delta: float,
 ) -> GNStats:
-    """Pure-jnp fused reduction (oracle + XLA fallback path).
+    """Pure-jnp fused reduction (oracle, and the path off the GPU).
 
     Args:
       x: (N, 3) source points in target frame (already transformed).
@@ -67,40 +67,6 @@ def gn_reduce(
         b=b,
         num_inliers=jnp.sum(w_valid),
         weighted_sq_sum=jnp.sum(w * r * r),
-        num_valid_src=jnp.sum(src_mask.astype(x.dtype)),
-    )
-
-
-def gn_reduce_auto(
-    x: jnp.ndarray,
-    q: jnp.ndarray,
-    n: jnp.ndarray,
-    w_valid: jnp.ndarray,
-    src_mask: jnp.ndarray,
-    huber_delta: float,
-    use_pallas: bool = False,
-) -> GNStats:
-    """Backend selector: fused Pallas pass on TPU, jnp elsewhere.
-
-    The Pallas kernel is the production path (single-VMEM-pass reduction,
-    tpuslam/kernels/pallas_gn.py); the jnp path is the oracle and the
-    fallback for non-TPU backends.
-    """
-    if not use_pallas:
-        return gn_reduce(x, q, n, w_valid, src_mask, huber_delta)
-    import jax
-
-    from tpuslam.kernels.pallas_gn import gn_reduce_pallas
-
-    interpret = jax.default_backend() != "tpu"
-    H, b, inliers, wsq, _wsum = gn_reduce_pallas(
-        x, q, n, w_valid, huber_delta, interpret=interpret
-    )
-    return GNStats(
-        H=H,
-        b=b,
-        num_inliers=inliers,
-        weighted_sq_sum=wsq,
         num_valid_src=jnp.sum(src_mask.astype(x.dtype)),
     )
 

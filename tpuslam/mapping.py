@@ -3,7 +3,7 @@
 Reference status: accumulated voxel map used as ICP target for
 frame-to-keyframe/map tracking (SURVEY.md §2a R10; provenance [B:10]).
 
-TPU design: the map is just a fixed-capacity masked `PointCloud` in world
+Design: the map is just a fixed-capacity masked `PointCloud` in world
 frame.  Fusion is the sort-based voxel reduction (tpuslam/geom/voxel.py) of
 `concat(map, new_points)` — a single static-shape jitted program, no hash
 table mutation, no scatter (SURVEY.md §7 "Hard parts": prefer
